@@ -8,7 +8,7 @@ Canonical implementation: ldpc_3gpp_tpu/bench.py (also installed as the
    "vs_baseline": N, ...}
 
 ``--sweep`` prints the early-termination throughput-economics surface
-instead (one JSON line per row; pinned in golden/bench_sweep.json).
+instead (one JSON line per row).  Runs on a GPU only.
 """
 from ldpc_3gpp_tpu.bench import main
 

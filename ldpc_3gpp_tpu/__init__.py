@@ -1,6 +1,6 @@
-"""TPU-native 3GPP NR LDPC simulation framework.
+"""Accelerator-native 3GPP NR LDPC simulation framework.
 
-From-scratch JAX/XLA/Pallas implementation of the TS38.212 shared-channel
+From-scratch JAX/XLA implementation of the TS38.212 shared-channel
 coding chain with the capability surface of robmaunder/ldpc-3gpp-matlab.
 See README.md, DESIGN.md, VALIDATION.md, COVERAGE.md.
 """

@@ -22,6 +22,7 @@ from ..ops.channel import awgn, esn0_to_variance
 from ..ops.modulation import Q_M
 from ..spec.params import LDPCParams
 from .decoder import (
+    DECODE_BACKENDS,
     decode_transport_block_d,
     init_harq_state,
     split_rate_matched_symbols,
@@ -46,15 +47,9 @@ class ChainConfig:
     demod_method: str = "exact"
     early_termination: bool = True
     # BP decoder implementation (models.decoder.DECODE_BACKENDS).  'auto'
-    # engages the Pallas kernel on TPU and the XLA path elsewhere — an
-    # implementation knob, not semantics: the kernel is bit-exact vs the
-    # XLA backends for both schedules (tests/test_tpu_kernel.py), so
-    # user-facing sweeps get kernel speed by default with identical curves.
-    # 'pallas-interpret' runs the same kernel trace under the Pallas
-    # interpreter on any backend (CPU meshes, dryruns); slow on chip.
+    # picks the production XLA path for the schedule on every platform.
     backend: str = "auto"
-    schedule: str = "flooding"  # BP schedule ('layered': backend auto/pallas*)
-    message_dtype: str = "float32"  # kernel state dtype ('bfloat16': 2x tile)
+    schedule: str = "flooding"  # BP schedule ('layered': backend auto/fast)
     # iteration-dependent NMS normalization (alpha0, n0): alpha0 for the
     # first n0 sweeps, then `alpha`.  None = constant alpha (bit-exact
     # baseline).  Measured a dead end at the bench point (DESIGN.md
@@ -70,6 +65,11 @@ class ChainConfig:
     cbgti_sequence: Optional[Tuple[Tuple[int, ...], ...]] = None
 
     def __post_init__(self):
+        if self.backend not in DECODE_BACKENDS:
+            raise ValueError(
+                f"unknown decode backend {self.backend!r}; "
+                f"expected one of {sorted(DECODE_BACKENDS)}"
+            )
         assert Q_M[self.modulation] == self.params.Q_m, (
             f"modulation {self.modulation} has Q_m={Q_M[self.modulation]} but "
             f"params.Q_m={self.params.Q_m}"
@@ -102,23 +102,6 @@ class BatchResult(NamedTuple):
     tb_ok: jax.Array  # (batch,) per-block success (for found-start logic)
 
 
-def _efficient_batch(batch: int) -> int:
-    """Internal simulated batch: next multiple of 128 for batch > 64.
-
-    Measured on v5e (tools/exp_batch_collapse.py, DESIGN.md section 8b):
-    the fused chain's cost is dominated by a near-constant per-dispatch
-    component, and XLA emits a substantially better program when the batch
-    is a multiple of 128 — e.g. the LDPC encode core costs ~420-550 us per
-    dispatch at ANY multiple of 128 up to 512, but 700-1000 us at
-    96/160/192.  Simulating the padded batch and discarding the pad rows is
-    therefore cheaper than simulating the requested batch directly (96 ->
-    128 measured 1.7x faster end to end).  Batches <= 64 (tests, dryruns)
-    and multiples of 128 (all golden artifacts) are unchanged, so the RNG
-    stream of every pinned measurement is preserved.
-    """
-    return batch if batch <= 64 else -(-batch // 128) * 128
-
-
 def simulate_batch(
     cfg: ChainConfig, key: jax.Array, esn0_db, batch: int
 ) -> BatchResult:
@@ -127,20 +110,15 @@ def simulate_batch(
     Each block runs the HARQ loop of plot_BLER_vs_SNR.m:124-137: encode and
     transmit rv_sequence[0], then accumulate retransmissions until the TB
     decodes.  Already-decoded blocks are frozen while the batch continues.
-
-    Internally the simulated batch is padded up to an XLA-efficient size
-    (``_efficient_batch``); pad rows are discarded from every counter, so
-    the returned statistics cover exactly ``batch`` blocks.
     """
     p0 = cfg.params
     noise_var = esn0_to_variance(esn0_db)
-    eff = _efficient_batch(batch)
 
     key_a, key_ch = jax.random.split(key)
-    a = jax.random.bernoulli(key_a, 0.5, (eff, p0.A)).astype(jnp.int8)
+    a = jax.random.bernoulli(key_a, 0.5, (batch, p0.A)).astype(jnp.int8)
 
-    state = init_harq_state(p0, (eff,))
-    success = jnp.zeros((eff,), bool)
+    state = init_harq_state(p0, (batch,))
+    success = jnp.zeros((batch,), bool)
     a_hat = jnp.zeros_like(a)
     total_iters = jnp.zeros((), jnp.int32)
     iter_hist = jnp.zeros((cfg.iterations + 1,), jnp.int32)
@@ -173,7 +151,6 @@ def simulate_batch(
             early_termination=cfg.early_termination,
             backend=cfg.backend,
             schedule=cfg.schedule,
-            message_dtype=cfg.message_dtype,
             alpha_schedule=cfg.alpha_schedule,
         )
         state = res.state
@@ -184,22 +161,18 @@ def simulate_batch(
         # SIMD batch necessarily re-decodes already-successful blocks at
         # later rv stages, but those decodes would never happen in the
         # reference, so they are excluded from both observables.
-        # (sliced to the requested batch: pad rows never count)
-        active = ~success[:batch]  # blocks still undecoded BEFORE this stage
-        stage_iters = res.iterations[:batch] * active[:, None].astype(
+        active = ~success  # blocks still undecoded BEFORE this stage
+        stage_iters = res.iterations * active[:, None].astype(
             res.iterations.dtype
         )
         success = success | res.tb_ok
         total_iters = total_iters + jnp.sum(stage_iters).astype(jnp.int32)
         iter_hist = iter_hist + jnp.sum(
-            jax.nn.one_hot(
-                res.iterations[:batch], cfg.iterations + 1, dtype=jnp.int32
-            )
+            jax.nn.one_hot(res.iterations, cfg.iterations + 1, dtype=jnp.int32)
             * active[:, None, None],
             axis=(0, 1),
         )
 
-    a, a_hat, success = a[:batch], a_hat[:batch], success[:batch]
     bits_equal = jnp.all(a_hat == a, axis=-1)
     tb_ok = success & bits_equal  # undetected CRC errors still count as errors
     bit_errs = jnp.sum(

@@ -24,7 +24,6 @@ from ..ops.crc import crc_check
 from ..ops.decoder import decode as bp_decode_ref
 from ..ops.decoder_fast import decode as bp_decode_fast
 from ..ops.decoder_layered import decode as bp_decode_layered
-from ..ops import decoder_pallas
 from ..ops.rate_match import accumulate_llrs, deinterleave
 from ..spec.params import LDPCParams
 
@@ -42,70 +41,24 @@ def _drop_schedule(fn, layered_fn=None):
     return wrapped
 
 
-def _kernel_engaged(backend: str, algorithm: str, params: LDPCParams) -> bool:
-    """Will this (backend, algorithm, params) run the Pallas kernel?
-
-    Mirrors ``_bp_decode_auto``'s dispatch so the chain can pick the
-    kernel's fused ``channel_format='d'`` input path exactly when the
-    kernel will consume it.
-    """
-    if backend in ("pallas", "pallas-interpret"):
-        return True
-    return (
-        backend == "auto"
-        and jax.default_backend() == "tpu"
-        and algorithm in decoder_pallas.ALGORITHMS
-        and decoder_pallas.supports(params)
-    )
-
-
-def _bp_decode_auto(params, llr, *, algorithm, schedule="layered", **kw):
-    """Pallas kernel when it applies, flooding XLA path otherwise."""
-    if _kernel_engaged("auto", algorithm, params):
-        return decoder_pallas.decode(
-            params, llr, algorithm=algorithm, schedule=schedule, **kw
-        )
-    kw.pop("message_dtype", None)  # perf knob of the kernel, not semantics
-    # kernel-only input/output formats must not reach the XLA paths
-    assert kw.pop("channel_format", "cw") == "cw"
-    assert kw.pop("output_format", "cw") == "cw"
-    if schedule == "layered":
-        return bp_decode_layered(params, llr, algorithm=algorithm, **kw)
-    return bp_decode_fast(params, llr, algorithm=algorithm, **kw)
-
-
-def _bp_decode_interpret(params, llr, **kw):
-    """The Pallas kernel in Pallas interpret mode: the SAME kernel trace
-    (tiling, packing, fused d-input/sys-output, rolls, termination masks)
-    executed by the interpreter on any backend.  This is how the kernel —
-    including its check_vma=False seam under shard_map
-    (parallel/montecarlo.py) — runs on the driver's virtual CPU mesh and in
-    CPU-tier tests; on-chip it is only a debugging aid (orders of magnitude
-    slower than the compiled kernel)."""
-    return decoder_pallas.decode(params, llr, interpret=True, **kw)
-
+_bp_decode_xla = _drop_schedule(bp_decode_fast, bp_decode_layered)
 
 # BP decoder implementations:
-#   'auto'      — pallas kernel (layered or flooding) on TPU, else 'fast'
-#   'pallas'    — VMEM-resident TPU kernel: SP/NMS/OMS x layered/flooding
-#   'pallas-interpret' — the same kernel, interpreted: runs on CPU meshes
-#   'fast'      — static-roll XLA path: flooding (bit-exact vs 'reference')
-#                 or layered (ops/decoder_layered.py, the kernel's oracle)
+#   'auto'      — the production path for the schedule, on every platform:
+#                 ops/decoder_layered.py (layered) or ops/decoder_fast.py
+#                 (flooding)
+#   'fast'      — the same static-roll XLA paths, under their original name
 #   'reference' — flooding, segment-op oracle (ops/decoder.py)
 DECODE_BACKENDS = {
-    "auto": _bp_decode_auto,
-    "pallas": decoder_pallas.decode,
-    "pallas-interpret": _bp_decode_interpret,
-    "fast": _drop_schedule(bp_decode_fast, bp_decode_layered),
+    "auto": _bp_decode_xla,
+    "fast": _bp_decode_xla,
     "reference": _drop_schedule(bp_decode_ref),
 }
 
 # Large finite stand-in for the reference's +inf filler LLRs
 # (NRLDPCDecoder.m:264).  Finite so that inf - inf NaNs can never appear in
-# message passing; far above any channel LLR magnitude.  Aliases the
-# kernel's constant: the kernel pins fillers itself in its fused
-# channel_format='d' input path, and both paths must agree bit-for-bit.
-FILLER_LLR = decoder_pallas.FILLER_LLR
+# message passing; far above any channel LLR magnitude.
+FILLER_LLR = 1e20
 
 
 class HARQState(NamedTuple):
@@ -209,7 +162,6 @@ def decode_transport_block(
     early_termination: bool = True,
     backend: str = "fast",
     schedule: str = "flooding",
-    message_dtype: str = "float32",
     alpha_schedule=None,
 ) -> TBDecodeResult:
     """Full decode chain for one (re)transmission of (..., G) channel LLRs.
@@ -223,8 +175,7 @@ def decode_transport_block(
         params, d_tilde, state,
         iterations=iterations, algorithm=algorithm, alpha=alpha, beta=beta,
         early_termination=early_termination, backend=backend,
-        schedule=schedule, message_dtype=message_dtype,
-        alpha_schedule=alpha_schedule,
+        schedule=schedule, alpha_schedule=alpha_schedule,
     )
 
 
@@ -239,7 +190,6 @@ def decode_transport_block_d(
     early_termination: bool = True,
     backend: str = "fast",
     schedule: str = "flooding",
-    message_dtype: str = "float32",
     alpha_schedule=None,
 ) -> TBDecodeResult:
     """``decode_transport_block`` from the (..., C, N) circular-buffer LLRs.
@@ -260,49 +210,30 @@ def decode_transport_block_d(
         d_tilde = d_tilde.at[..., :N_cb].add(state.d_buf)
     d_buf = d_tilde[..., :N_cb]
 
+    if backend not in DECODE_BACKENDS:
+        raise ValueError(
+            f"unknown decode backend {backend!r}; "
+            f"expected one of {sorted(DECODE_BACKENDS)}"
+        )
     extra = {}
     if alpha_schedule is not None:
-        # iteration-dependent NMS normalization (ops/decoder_pallas.py /
-        # ops/decoder_layered.py): supported by the kernel (both schedules)
-        # and the XLA layered oracle; the flooding XLA path has no use for
-        # it (flooding is the bit-exact MATLAB-semantics mode)
-        if not _kernel_engaged(backend, algorithm, params) and (
-            schedule != "layered" or backend == "reference"
-        ):
+        # iteration-dependent NMS normalization: implemented by the XLA
+        # layered path only (flooding is the bit-exact MATLAB-semantics mode)
+        if schedule != "layered" or backend == "reference":
             raise ValueError(
-                "alpha_schedule requires the pallas kernel or the XLA "
-                "layered backend (schedule='layered')"
+                "alpha_schedule requires the layered schedule "
+                "(schedule='layered', backend 'auto' or 'fast')"
             )
         extra["alpha_schedule"] = (
             float(alpha_schedule[0]), int(alpha_schedule[1])
         )
-    if message_dtype != "float32":
-        if backend not in ("pallas", "pallas-interpret", "auto"):
-            raise ValueError(
-                f"message_dtype={message_dtype} is a pallas-kernel knob; "
-                f"backend {backend!r} is f32-only"
-            )
-        extra["message_dtype"] = message_dtype
 
     # Rebuild the full codeword LLRs: 2Z punctured zeros + d, fillers pinned
-    # to +FILLER_LLR (known zero bits; NRLDPCDecoder.m:262-264).  When the
-    # Pallas kernel is engaged it performs both steps itself at VMEM load
-    # time (channel_format='d'), so the chain skips one full-codeword HBM
-    # materialization; values are bit-identical (tests/test_decoder_pallas).
-    # (Kp >= 2Z guards the corner where fillers would reach into the
-    # punctured region — never seen for valid NR parameters, but the fused
-    # path synthesizes zeros there while the cw path pins FILLER.)
-    if _kernel_engaged(backend, algorithm, params) and Kp >= 2 * Z:
-        dec_llr = d_tilde
-        extra["channel_format"] = "d"
-        # the chain reads only the K systematic+filler bits of c_hat below;
-        # let the kernel skip the parity columns' output entirely
-        extra["output_format"] = "sys"
-    else:
-        zeros2z = jnp.zeros(batch_shape + (C, 2 * Z), jnp.float32)
-        dec_llr = jnp.concatenate([zeros2z, d_tilde], axis=-1)
-        if Kp < K:
-            dec_llr = dec_llr.at[..., Kp:K].set(FILLER_LLR)
+    # to +FILLER_LLR (known zero bits; NRLDPCDecoder.m:262-264).
+    zeros2z = jnp.zeros(batch_shape + (C, 2 * Z), jnp.float32)
+    dec_llr = jnp.concatenate([zeros2z, d_tilde], axis=-1)
+    if Kp < K:
+        dec_llr = dec_llr.at[..., Kp:K].set(FILLER_LLR)
 
     res = DECODE_BACKENDS[backend](
         params,
@@ -315,7 +246,7 @@ def decode_transport_block_d(
         schedule=schedule,
         **extra,
     )
-    c_hat = res.bits  # (..., C, num_cols*Z), or (..., C, K) from the kernel
+    c_hat = res.bits  # (..., C, num_cols*Z)
 
     # Section 5.2.2 inverse: CB CRC gate (only exists when C > 1,
     # NRLDPCDecoder.m:298-301) and scheduled-code-block masking.

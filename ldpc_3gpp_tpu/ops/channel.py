@@ -1,6 +1,6 @@
 """Complex AWGN channel.
 
-TPU-native replacement for comm.AWGNChannel in SNR mode with unit signal
+Batched JAX replacement for comm.AWGNChannel in SNR mode with unit signal
 power (plot_BLER_vs_SNR.m:50,105): total complex noise variance
 sigma^2 = 10^(-EsN0_dB/10), split evenly between I and Q.
 """

@@ -1,12 +1,12 @@
-"""Batched GF(2) CRC attach/check as MXU matmuls.
+"""Batched GF(2) CRC attach/check as matrix products.
 
 The reference delegates CRC to closed-source comm.CRCGenerator /
 comm.CRCDetector System objects (NRLDPCEncoder.m:45-48, NRLDPCDecoder.m:113-115).
 CRC over GF(2) is linear in the message, so for a fixed message length A the
 checksum is ``p = (a @ T) mod 2`` with a precomputed (A, L) generator matrix
 T[k] = x^(A-1-k+L) mod g(x).  That turns per-message bit-serial division into
-one batched (batch, A) x (A, L) matmul on the MXU — exactly the "large,
-batched" shape TPU wants.
+one batched (batch, A) x (A, L) matmul — the large, batched shape an
+accelerator's matrix units want.
 
 Bit convention matches TS38.212 Section 5.1: parity bits are appended
 highest-degree coefficient first, zero initial shift-register state.
@@ -21,8 +21,8 @@ import numpy as np
 
 from ..spec.tables import CRC_LENGTHS, crc_poly_bits
 
-# bf16 inputs on the MXU are exact here: 0/1 operands are bf16-representable,
-# products are 0/1, and the MXU accumulates in f32 (exact up to 2^24 > 8448+24).
+# bf16 inputs are exact here: 0/1 operands are bf16-representable, products
+# are 0/1, and the product accumulates in f32 (exact up to 2^24 > 8448+24).
 # (Precision.HIGHEST with f32 inputs forces a 6-pass decomposition that is
 # ~1000x slower for these skinny shapes.)
 _IN_DTYPE = jnp.bfloat16

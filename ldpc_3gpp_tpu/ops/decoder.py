@@ -1,9 +1,9 @@
 """Flooding belief-propagation LDPC decoder over lifted circulant blocks.
 
-TPU-native replacement for comm.LDPCDecoder (NRLDPCDecoder.m:120, :265):
+Batched JAX replacement for comm.LDPCDecoder (NRLDPCDecoder.m:120, :265):
 sum-product or normalized/offset min-sum, flooding schedule, with
 parity-check-satisfied early termination.  This is the batched jax.numpy
-reference implementation — the correctness oracle for the Pallas kernel.
+reference implementation — the correctness oracle for the fast decoders.
 
 Message layout: everything stays in the BASE-GRAPH edge domain.  An edge
 (r, c, s) of the base graph carries a (batch, Z) block of messages; check

@@ -1,18 +1,12 @@
-"""Layered-schedule BP decoder in plain XLA — the layered kernel's oracle.
+"""Layered-schedule BP decoder in plain XLA — the production layered path.
 
-The Pallas kernel's layered schedule (ops/decoder_pallas.py) updates the
-posterior totals in place after every check row, which roughly halves the
-iterations needed for a given BLER versus flooding.  This module implements
-the exact same schedule with ordinary jax.numpy operations (static
-``jnp.roll`` rotations, unrolled per-row scans, ``lax.while_loop`` early
-termination), so that:
+The layered schedule updates the posterior totals in place after every
+check row, which roughly halves the iterations needed for a given BLER
+versus flooding.  This module implements it with ordinary jax.numpy
+operations (static ``jnp.roll`` rotations, unrolled per-row scans,
+``lax.while_loop`` early termination), so it runs on every backend.
 
-- the kernel's layered trajectories can be cross-checked on CPU against an
-  independent implementation (tests/test_decoder_pallas.py), exactly like
-  the flooding kernel is checked against ops/decoder_fast.py;
-- ``schedule='layered'`` works on hosts without the Mosaic TPU backend.
-
-Semantics match the kernel sweep-for-sweep: per-row syndrome of the current
+Semantics, sweep by sweep: per-row syndrome of the current
 totals accumulates during the sweep; a codeword whose every row passed
 freezes (its totals and messages stop updating) and reports the sweep index
 at which it passed; the final permitted sweep (it == iterations) only
@@ -26,7 +20,7 @@ import jax.numpy as jnp
 
 from ..spec.params import LDPCParams
 from .decoder import DecodeResult, _PHI_MIN, _phi
-from .decoder_fast import _row_plan
+from .decoder_fast import _resolve_layer_order, _row_plan
 
 
 def _sign(x):
@@ -35,7 +29,7 @@ def _sign(x):
 
 
 def _check_messages(v, algorithm, alpha, beta):
-    """Extrinsic messages for one check row (mirrors the kernel's rule)."""
+    """Extrinsic messages for one check row."""
     if algorithm in ("min-sum", "offset-min-sum"):
         m1 = jnp.abs(v[0])
         m2 = jnp.full_like(m1, jnp.inf)
@@ -87,12 +81,11 @@ def decode(
     """Layered BP decode of (..., num_cols*Z) LLRs (XLA, any backend).
 
     ``layer_order`` ('reversed' default / 'natural' / explicit tuple) is the
-    row processing order, shared with the pallas kernel — see
-    ops/decoder_pallas.py::_resolve_layer_order for the measured rationale.
+    row processing order — see ops/decoder_fast.py::_resolve_layer_order
+    for the measured rationale.
 
     ``alpha_schedule=(alpha0, n0)`` (min-sum only): normalization alpha0
-    for the first n0 update sweeps, the standard ``alpha`` after — the
-    XLA oracle for the kernel's identically-defined knob.
+    for the first n0 update sweeps, the standard ``alpha`` after.
     """
     if alpha_schedule is not None and algorithm != "min-sum":
         raise ValueError("alpha_schedule applies to min-sum only")
@@ -102,7 +95,6 @@ def decode(
             return alpha
         a0, n0 = alpha_schedule
         return jnp.where(it < n0, jnp.float32(a0), jnp.float32(alpha))
-    from .decoder_pallas import _resolve_layer_order
 
     row_seq = _resolve_layer_order(params, layer_order)
     Z = params.Z_c
@@ -154,8 +146,8 @@ def decode(
         )
         used = jnp.where(done, used, iterations)
     else:
-        # Run-to-budget semantics (matches ops/decoder_fast and the Pallas
-        # kernel with early_termination=False): exactly `iterations` update
+        # Run-to-budget semantics (matches ops/decoder_fast with
+        # early_termination=False): exactly `iterations` update
         # sweeps with no freezing, bits from the final totals, parity flag
         # = the clean syndrome of that settled final state.
         def sweep_full(state):

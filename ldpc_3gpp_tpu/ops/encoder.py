@@ -223,12 +223,12 @@ def parity_generator_device(params: LDPCParams) -> jax.Array:
 def encode_mxu(
     params: LDPCParams, c: jax.Array, Gp: jax.Array | None = None
 ) -> jax.Array:
-    """MXU path: parity via one dense GF(2) matmul on the systolic array.
+    """Matmul path: parity via one dense GF(2) matmul on the matrix units.
 
     Bit-identical to ``encode`` (H c = 0 has a unique parity completion) but
     maps to a single (batch, K) x (K, P) bf16 matmul instead of ~700 rolled
     XORs — the ops are exact because 0/1 operands are bf16-representable and
-    the MXU accumulates in f32 (sums <= K = 8448 < 2^24).
+    the product accumulates in f32 (sums <= K = 8448 < 2^24).
 
     Trades HBM for speed: Gp is K x P bf16 (~300 MB for BG1 Z=384), cached
     per config.  Inside jit, pass ``Gp=parity_generator_device(params)`` as

@@ -7,8 +7,8 @@ code parameters AND contiguous (one range [lo, hi) inside d), so the walk is
 affine piecewise: one cycle of the buffer emits the non-filler positions
 ``[0, lo) ++ [hi, N_cb)`` rotated to start at k_0.  That makes both
 directions compositions of static slices, concats, and rolls — zero gathers,
-zero scatters (TPU gathers run ~elementwise-serial; slices/rolls are full
-bandwidth):
+zero scatters (gathers run far below streaming bandwidth; slices and rolls
+stream at full bandwidth):
 
 - encoder:  e = tile(roll(concat(d[:lo], d[hi:N_cb]), -r), reps)[:E]
 - decoder:  the scatter-add the reference implies (NRLDPCDecoder.m:228-234)

@@ -2,25 +2,24 @@
 
 The reference's multi-machine story is "start N MATLAB processes by hand with
 different seeds and merge the text files" (plot_BLER_vs_SNR.m:23-27).  The
-TPU-native equivalent: initialise the jax.distributed runtime so a pod slice
-(or multi-host CPU ring) forms ONE mesh, then run the exact same MonteCarlo /
-sweep code — the dp axis spans all processes' devices, psum rides ICI/DCN,
-and per-device RNG folding makes every chip's stream distinct.
+mesh equivalent: initialise the jax.distributed runtime so several hosts
+(or several local processes) form ONE mesh, then run the exact same
+MonteCarlo / sweep code — the dp axis spans all processes' devices, the
+counter psum crosses hosts, and per-device RNG folding makes every device's
+stream distinct.
 
-Typical pod-slice usage (one command per host, e.g. via gcloud/xpk):
+Typical usage (one command per host):
 
     python -m ldpc_3gpp_tpu.parallel.launcher --coordinator HOST0:1234 \
         --num-processes 4 --process-id $WORKER_ID -- \
         python my_sweep.py
 
-The launcher exports LDPC_TPU_COORDINATOR / LDPC_TPU_NUM_PROCESSES /
-LDPC_TPU_PROCESS_ID and execs the command; the sweep calls
-``init_distributed()`` (no arguments), which picks those up.  On real TPU
-pods with auto-detection (GKE/xpk set the cluster env), the launcher is
-unnecessary — ``init_distributed()`` alone suffices:
+The launcher exports LDPC_COORDINATOR / LDPC_NUM_PROCESSES /
+LDPC_PROCESS_ID and execs the command; the sweep calls
+``init_distributed()`` (no arguments), which picks those up:
 
     from ldpc_3gpp_tpu.parallel.launcher import init_distributed
-    init_distributed()            # env-driven (TPU pods auto-detect)
+    init_distributed()            # env-driven
     ...run sweeps as usual...
 
 Only process 0 writes results files (``is_primary()``); counters are already
@@ -31,9 +30,9 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-_ENV_COORD = "LDPC_TPU_COORDINATOR"
-_ENV_NPROC = "LDPC_TPU_NUM_PROCESSES"
-_ENV_PID = "LDPC_TPU_PROCESS_ID"
+_ENV_COORD = "LDPC_COORDINATOR"
+_ENV_NPROC = "LDPC_NUM_PROCESSES"
+_ENV_PID = "LDPC_PROCESS_ID"
 
 
 def init_distributed(
@@ -43,9 +42,9 @@ def init_distributed(
 ) -> None:
     """Initialise jax.distributed; no-ops on a single-process setup.
 
-    Arguments default to the LDPC_TPU_* env vars exported by the CLI
-    launcher below; with neither, relies on the TPU pod auto-detection
-    that jax.distributed.initialize performs from the environment.
+    Arguments default to the LDPC_* env vars exported by the CLI launcher
+    below; with neither, relies on whatever cluster auto-detection
+    jax.distributed.initialize performs from the environment.
     """
     import jax
 
@@ -76,7 +75,7 @@ def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m ldpc_3gpp_tpu.parallel.launcher",
         description="Launch one worker of a multi-process simulation: "
-        "exports LDPC_TPU_* env vars (read by init_distributed()) and "
+        "exports LDPC_* env vars (read by init_distributed()) and "
         "execs COMMAND.",
     )
     ap.add_argument("--coordinator", required=True,

@@ -170,8 +170,8 @@ def _simulate_point(
 
     Once the point is known to need more samples, dispatches are pipelined
     in windows sized from the observed error rate (one host fetch per
-    window — the fetch round trip would otherwise idle a remote TPU ~50%
-    of the time at low BLER).
+    window — a fetch after every dispatch would idle the device between
+    dispatches at low BLER).
 
     ``progress=True`` prints an interim line after every host fetch — the
     batched equivalent of the reference's per-block figure refresh

@@ -1,6 +1,6 @@
 """TS38.212 code parameter resolution.
 
-``LDPCParams`` is the TPU-native replacement for the reference's lazy
+``LDPCParams`` is the static, hashable replacement for the reference's lazy
 ``matlab.System`` property engine (NRLDPC.m:90-543): a frozen dataclass whose
 derived parameters are all computed eagerly at construction.  Every quantity
 is static Python data, so a jitted kernel specialised on an ``LDPCParams``

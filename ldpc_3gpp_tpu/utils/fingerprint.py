@@ -1,7 +1,7 @@
 """Decoder-semantics fingerprint for measured golden artifacts.
 
-golden/* artifacts are MEASURED on TPU and must be re-measured after any
-decoder-semantics change (CLAUDE.md rule).  Stamping this hash into each
+golden/* artifacts are MEASURED Monte-Carlo results and must be re-measured
+after any decoder-semantics change (CLAUDE.md rule).  Stamping this hash into each
 artifact lets regen tools refuse to mix stale and fresh measurements, and
 lets gate tests flag goldens that predate the current sources.
 
@@ -14,8 +14,8 @@ defaults, control flow) still changes the stamp.
 
 tests/test_goldens_stamped.py asserts every stamped golden matches the
 current fingerprint, so a silent mismatch cannot survive the quick tier;
-after a VERIFIED-neutral change (the on-chip statistical gates in
-tests/test_tpu_kernel.py pass against the existing artifact), re-stamp with
+after a VERIFIED-neutral change (the statistical gates in tests/test_gpu.py
+pass on the card against the existing artifact), re-stamp with
 ``python tools/regen_goldens.py --restamp``.
 """
 from __future__ import annotations

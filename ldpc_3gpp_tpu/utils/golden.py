@@ -268,7 +268,7 @@ def golden_decode_core(
     llr: (..., n_cols*Z) float32 lifted-layout channel LLRs.  Returns
     (bits, parity_ok, iterations_used[, totals]) with the same leading
     shape.  The min-sum family is bit-exact vs ops.decoder_fast.decode /
-    the Pallas flooding kernel; sum-product follows the same schedule and
+    the reference segment-op decoder; sum-product follows the same schedule and
     clamps but evaluates phi with libm, so agreement there is
     tolerance-based on the posterior totals (request them with
     ``return_totals=True``); see nr_golden_decode_core in native/golden.cpp

@@ -1,7 +1,7 @@
 """Plot helpers mirroring the reference's live figures.
 
 The reference updates MATLAB figures while sweeping (plot_BLER_vs_SNR.m:157-160,
-plot_SNR_vs_A.m:177-184).  Headless TPU hosts render to PNG instead: call these
+plot_SNR_vs_A.m:177-184).  Headless hosts render to PNG instead: call these
 on sweep results (or on the results/*.txt files they wrote).
 """
 from __future__ import annotations

@@ -3,24 +3,29 @@
 The reference has no profiling at all (SURVEY.md section 5).  Here:
 
 - ``trace(path)``: context manager around jax.profiler for XProf traces of
-  the jitted sim step (view with tensorboard / xprof).
+  the jitted sim step (view with tensorboard / xprof); by default written
+  to ``<checkout>/chiprun_out/trace`` (git-ignored).
 - ``slope_time(f, x)``: per-call device time of a jitted function measured
-  by chaining K calls inside one jit and fetching a scalar — the only
-  reliable way to time through an async / remote dispatch layer where
-  block_until_ready may not block and host fetches pay transfer costs.
+  by chaining K calls inside one jit and fetching a scalar, so fixed
+  per-dispatch and transfer costs cancel out of the slope.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 
+DEFAULT_TRACE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "chiprun_out", "trace")
+)
+
 
 @contextlib.contextmanager
-def trace(path: str = "/tmp/ldpc_tpu_trace"):
+def trace(path: str = DEFAULT_TRACE_DIR):
     jax.profiler.start_trace(path)
     try:
         yield path

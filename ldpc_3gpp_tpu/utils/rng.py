@@ -1,10 +1,9 @@
 """PRNG helpers for Monte-Carlo throughput.
 
 JAX's default threefry2x32 generator is bit-reproducible across backends but
-costs more than the whole demodulator on TPU (measured 3.4 us/codeword for
-one codeword's noise at G=25272 vs 0.9 us with ``rbg``).  Monte-Carlo noise
-only needs statistical quality, not cross-backend bit-reproducibility, so
-the sweep drivers and the benchmark draw from the hardware-friendly ``rbg``
+is a long chain of integer ops per output word.  Monte-Carlo noise only needs
+statistical quality, not cross-backend bit-reproducibility, so the sweep
+drivers and the benchmark draw from the hardware-friendly ``rbg``
 implementation (XLA RngBitGenerator, Philox-based) instead.
 
 Runs remain deterministic for a fixed (seed, device count, batch size) — the

@@ -2,7 +2,7 @@
 // full transport-block decode chain.
 //
 // Plays the role MathWorks' nrULSCH plays for the reference (testbench.m:59-68):
-// a second, independently written implementation that the TPU chain must
+// a second, independently written implementation that the JAX chain must
 // match bit-for-bit across the randomized parameter space.  Deliberately uses
 // DIFFERENT algorithms from the JAX path wherever possible:
 //   - LDPC parity is solved by dense GF(2) Gaussian elimination on the 4Z x 4Z
@@ -674,7 +674,7 @@ int nr_golden_encode(int BG, int A, long G, int Q_m, int N_L, int rv_id,
 
 // Independent scalar flooding BP decoder over the lifted PCM — the decoder
 // conformance oracle.  The JAX decoders (ops/decoder.py, decoder_fast.py,
-// decoder_layered.py, decoder_pallas.py) all share the base-graph edge plan
+// decoder_layered.py) all share the base-graph edge plan
 // (_row_plan), so a bug there would be invisible to their cross-checks; this
 // implementation builds the lifted adjacency scalar-by-scalar straight from
 // the spec tables and runs the textbook per-check update.

@@ -71,12 +71,10 @@ def test_mid_waterfall_point_matches_golden():
 @pytest.mark.slow
 def test_bench_path_layered_nms_matches_golden():
     """The throughput-bench configuration (BG1 A=8424 Z=384, layered NMS
-    12 it) gated against its TPU-measured golden waterfall at two anchors:
+    12 it) gated against its measured golden waterfall at two anchors:
     the shoulder (BLER ~0.84, catches degradation) and the steep mid-fall
-    (BLER ~0.055, catches improvement/shift both ways).  On CPU the layered
-    XLA backend carries the identical trajectory as the pallas kernel
-    (bit-exactness: tests/test_decoder_pallas.py interpret mode,
-    tests/test_tpu_kernel.py compiled)."""
+    (BLER ~0.055, catches improvement/shift both ways), through the same
+    layered XLA backend the chain runs on every platform."""
     with open(BENCH_GOLDEN) as f:
         g = json.load(f)
     params = LDPCParams(BG=1, A=8424, G=25272, Q_m=2)

@@ -238,14 +238,9 @@ def test_harq_iteration_accounting_stops_on_success():
     assert r1.iteration_hist.sum() == 32 * p.C
 
 
-def test_simulate_batch_pads_inefficient_batches():
-    """batch > 64 simulates a multiple-of-128 batch internally (the measured
-    XLA dispatch cliff, DESIGN.md section 8b) but counts EXACTLY the
-    requested blocks."""
-    from ldpc_3gpp_tpu.models.chain import _efficient_batch
-
-    assert [_efficient_batch(b) for b in (4, 64, 65, 96, 100, 128, 160, 256)] \
-        == [4, 64, 128, 128, 128, 128, 256, 256]
+def test_simulate_batch_counts_requested_batch():
+    """A batch that is no multiple of 128 is simulated as given and counts
+    EXACTLY the requested blocks."""
     p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
     cfg = ChainConfig(params=p, modulation="QPSK", iterations=15)
     r = jax.tree.map(

@@ -1,6 +1,6 @@
 """Differential conformance testbench.
 
-TPU-native analogue of the reference's testbench.m: the JAX encoder chain is
+The analogue of the reference's testbench.m: the JAX encoder chain is
 compared bit-for-bit against the independent native C++ oracle
 (native/golden.cpp — dense GF(2) core solve + literal spec rate-matching
 loop) over a randomized parameter space (testbench.m:21-36 draws the same

@@ -116,3 +116,70 @@ def test_early_termination_budget_exact():
         )(llr)
         np.testing.assert_array_equal(np.asarray(rf.bits), np.asarray(ro.bits))
         assert not np.array_equal(np.asarray(rf.bits), np.asarray(ro1.bits))
+
+
+@pytest.mark.parametrize("schedule", ["layered", "flooding"])
+def test_auto_backend_resolves_to_xla_path(schedule):
+    """backend='auto' is the production XLA path for the schedule — the
+    layered decoder or the static-roll flooding decoder — on every platform,
+    bit-for-bit, with the schedule keyword dropped."""
+    from ldpc_3gpp_tpu.models.decoder import DECODE_BACKENDS
+    from ldpc_3gpp_tpu.ops.decoder_fast import decode as decode_fast
+    from ldpc_3gpp_tpu.ops.decoder_layered import decode as decode_layered
+
+    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
+    llr = jnp.asarray(
+        RNG.normal(1.0, 2.0, size=(4, p.num_cols * p.Z_c)).astype(np.float32)
+    )
+    want_fn = decode_layered if schedule == "layered" else decode_fast
+    got = jax.jit(partial(DECODE_BACKENDS["auto"], p, algorithm="min-sum",
+                          iterations=6, schedule=schedule))(llr)
+    want = jax.jit(partial(want_fn, p, algorithm="min-sum", iterations=6))(llr)
+    assert DECODE_BACKENDS["auto"] is DECODE_BACKENDS["fast"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas-interpret"])
+def test_removed_kernel_backends_rejected(backend):
+    """The accelerator-kernel backends are gone: a ChainConfig naming one
+    fails at construction, and so does a direct TB decode."""
+    from ldpc_3gpp_tpu.models.chain import ChainConfig
+    from ldpc_3gpp_tpu.models.decoder import decode_transport_block
+
+    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
+    with pytest.raises(ValueError, match="unknown decode backend"):
+        ChainConfig(params=p, modulation="QPSK", backend=backend)
+    with pytest.raises(ValueError, match="unknown decode backend"):
+        decode_transport_block(p, jnp.zeros((1, p.G)), backend=backend)
+
+
+def test_message_dtype_rejected():
+    """message_dtype was a knob of the removed kernel; no path accepts it."""
+    from ldpc_3gpp_tpu.models.chain import ChainConfig
+    from ldpc_3gpp_tpu.models.decoder import decode_transport_block
+
+    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
+    with pytest.raises(TypeError):
+        ChainConfig(params=p, modulation="QPSK", message_dtype="bfloat16")
+    with pytest.raises(TypeError):
+        decode_transport_block(p, jnp.zeros((1, p.G)),
+                               message_dtype="bfloat16")
+
+
+def test_layer_order_validation():
+    """layer_order: 'natural' / 'reversed' / an explicit permutation of the
+    base-graph rows; anything else is rejected before tracing."""
+    from ldpc_3gpp_tpu.ops.decoder_fast import _resolve_layer_order
+    from ldpc_3gpp_tpu.ops.decoder_layered import decode as decode_layered
+
+    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
+    nr = p.num_rows
+    assert _resolve_layer_order(p, "natural") == tuple(range(nr))
+    assert _resolve_layer_order(p, "reversed") == tuple(range(nr - 1, -1, -1))
+    explicit = tuple(range(1, nr)) + (0,)
+    assert _resolve_layer_order(p, explicit) == explicit
+    llr = jnp.zeros((2, p.num_cols * p.Z_c))
+    for bad in ((0, 1, 2), tuple(range(nr - 1)) + (0,)):
+        with pytest.raises(ValueError, match="layer_order must permute"):
+            decode_layered(p, llr, layer_order=bad)

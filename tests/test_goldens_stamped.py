@@ -1,10 +1,10 @@
 """Quick-tier guard: stamped golden artifacts match the current sources.
 
-golden/* artifacts are MEASURED on TPU; each one that carries a
+golden/* artifacts are MEASURED Monte-Carlo results; each one that carries a
 ``semantics`` stamp must match ``semantics_fingerprint()`` at HEAD,
 otherwise the measurement predates a decoder-semantics change and must be
 re-measured (``python tools/regen_goldens.py <stage>``) — or, after a
-VERIFIED-neutral change (the on-chip statistical gates pass against the
+VERIFIED-neutral change (the BLER gates pass against the
 existing artifact), re-stamped with ``python tools/regen_goldens.py
 --restamp``.  Without this test the stale-stamp guard only trips inside
 regen tools, i.e. silently (advisor round-3 finding).

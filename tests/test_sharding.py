@@ -97,43 +97,47 @@ def test_psum_matches_manual_aggregation():
 
 
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
-def test_interpret_kernel_under_mesh_matches_xla(schedule):
-    """The Pallas kernel itself on the 8-device mesh (interpret mode): the
-    single path multi-device users actually run — pallas_call under
-    shard_map with check_vma=False (parallel/montecarlo.py) — must produce
-    counters bit-identical to the XLA backend on the same mesh, for both
-    schedules.  Until round 5 this seam was only ever exercised by one
-    1-device on-chip test; the interpreter executes the same kernel trace
-    (tiling, lane packing, fused d-input/sys-output, termination masks)
-    locally, converting argued-equivalent into tested (VERDICT round 4 #1).
-    """
-    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)  # Z=20: kernel-eligible
-    counters = []
-    for backend in ("pallas-interpret", "fast"):
-        cfg = ChainConfig(params=p, modulation="QPSK", iterations=4,
-                          algorithm="min-sum", backend=backend,
-                          schedule=schedule)
-        mc = MonteCarlo(cfg, batch_per_device=2)
-        counters.append(mc.run(jax.random.PRNGKey(7), 0.0))
-    a, b = counters
-    assert a["block_errors"] > 0  # 0 dB: error-rich, the comparison has teeth
-    assert set(a) == set(b)
-    for k in a:
-        assert np.array_equal(a[k], b[k]), (k, a[k], b[k])
+def test_mesh_counters_match_per_device_sums(schedule):
+    """MonteCarlo on all 8 virtual devices, shard_map with its default
+    varying-axes check, equals the sum over devices d and steps i of
+    ``simulate_batch(cfg, fold_in(fold_in(key, d), i))`` run unsharded —
+    every counter and the histogram, in integers, for both schedules."""
+    from ldpc_3gpp_tpu.models.chain import simulate_batch
+
+    p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
+    cfg = ChainConfig(params=p, modulation="QPSK", iterations=4,
+                      algorithm="min-sum", schedule=schedule)
+    mc = MonteCarlo(cfg, batch_per_device=2, steps_per_call=2)
+    assert mc.mesh.size == 8
+    key = jax.random.PRNGKey(7)
+    got = mc.run(key, 0.0)
+
+    sim = jax.jit(partial(simulate_batch, cfg, batch=2))
+    e = jnp.asarray(0.0, jnp.float32)
+    want = {"blocks": 0, "block_errors": 0, "bit_errors": 0, "iterations": 0}
+    hist = np.zeros(cfg.iterations + 1, np.int64)
+    for d in range(8):
+        for i in range(2):
+            r = sim(jax.random.fold_in(jax.random.fold_in(key, d), i), e)
+            for k in want:
+                want[k] += int(getattr(r, k))
+            hist += np.asarray(r.iteration_hist, np.int64)
+    assert want["block_errors"] > 0  # 0 dB: error-rich, the check has teeth
+    np.testing.assert_array_equal(got.pop("iteration_hist"), hist)
+    assert got == want
 
 
-def test_montecarlo_rounds_batch_up_to_efficient_size():
-    """batch_per_device > 64 rounds UP to a multiple of 128 (DESIGN.md 8b):
-    the padded rows cost no extra wall time, so they become real samples
-    and the counters report the actual simulated blocks."""
+def test_montecarlo_keeps_requested_batch():
+    """batch_per_device is simulated as given — no rounding to a multiple of
+    128 — and the counters report exactly the requested blocks."""
     p = LDPCParams(BG=2, A=100, G=300, Q_m=2)
     cfg = ChainConfig(params=p, modulation="QPSK", iterations=4)
     mc = MonteCarlo(cfg, batch_per_device=100)
-    assert mc.batch_per_device == 128
+    assert mc.batch_per_device == 100
+    assert mc.blocks_per_run == 100 * mc.mesh.size
     c = mc.run(jax.random.PRNGKey(0), 8.0)
-    assert c["blocks"] == 128 * mc.mesh.size
-    # small batches (tests, dryruns) are untouched
-    assert MonteCarlo(cfg, batch_per_device=16).batch_per_device == 16
+    assert c["blocks"] == 100 * mc.mesh.size
+    assert c["iteration_hist"].sum() == 100 * mc.mesh.size * p.C
 
 
 @pytest.mark.slow

@@ -1,6 +1,6 @@
 """Structural regression pins on the measured SNR-vs-A surface golden.
 
-golden/SNR_vs_A_surface.json (BASELINE config #4) is measured on TPU by
+golden/SNR_vs_A_surface.json (BASELINE config #4) is measured by
 tools/regen_goldens.py surface.  These pins catch a corrupted or
 half-regenerated artifact and any physically implausible regression:
 information-theoretic ordering across rates, coding gain with block

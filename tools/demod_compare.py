@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Measure exact-vs-max-log LLR demodulation BLER on a 64QAM link (TPU).
+"""Measure exact-vs-max-log LLR demodulation BLER on a 64QAM link.
 
 The reference's NRDemodulator exposes DecisionMethod = 'Log-likelihood
 ratio' | 'Approximate log-likelihood ratio' (NRDemodulator.m:10); this
@@ -30,7 +30,7 @@ def main():
             "Exact vs max-log ('Approximate log-likelihood ratio', "
             "NRDemodulator.m:10) soft demodulation on a 64QAM link: BG1 "
             "A=4008 R=1/2 (G=8016), layered normalized min-sum 12 "
-            "iterations, >=100 block errors per point, seed 0, TPU v5e."
+            "iterations, >=100 block errors per point, seed 0."
         ),
     }
     for method in ("exact", "maxlog"):
@@ -38,7 +38,7 @@ def main():
             A=[4008], rate=[1 / 2], bg=[1], modulation="64QAM",
             iterations=12, target_block_errors=100, target_bler=1e-3,
             esn0_start=8.0, esn0_delta=0.25, seed=0, algorithm="min-sum",
-            backend="pallas", schedule="layered", demod_method=method,
+            backend="auto", schedule="layered", demod_method=method,
             batch_per_device=1024, steps_per_call=2, results_dir="results",
         )[(1, 1 / 2, 4008)]
         out[method] = {

@@ -56,11 +56,8 @@ def main():
     ap.add_argument("--out", default="golden/lifting_sweep.json")
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_platforms", "cpu")
     from ldpc_3gpp_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
@@ -115,6 +112,7 @@ def main():
         "single-code-block rate-matched grid; high-SNR roundtrip must be "
         "error-free, mid-SNR BLER recorded.",
         "configs_run": len([r for r in results if r.get("status") != "unsupported"]),
+        "device": jax.devices()[0].device_kind,
         "high_snr_failures": len(bad),
         "elapsed_s": round(time.time() - t_start, 1),
         "results": results,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Pod-scale Monte-Carlo campaign (BASELINE config #5): >= 1e9 code blocks
+"""Large-scale Monte-Carlo campaign (BASELINE config #5): >= 1e9 code blocks
 across a full BG1+BG2 x modulation matrix, psum-aggregated counters.
 
 Each matrix entry auto-calibrates its Es/N0 operating point (steps the SNR
@@ -7,12 +7,12 @@ up until BLER <= --target-bler on a calibration batch, so every bulk run
 sits in its waterfall with a realistic early-termination iteration mix and
 a statistically meaningful error count), then runs its block budget through
 the full chain (encode -> modulate -> AWGN -> exact LLR demod -> decode ->
-CRC gating) with the layered normalized min-sum Pallas kernel.
+CRC gating) with layered normalized min-sum.
 
 Results checkpoint per config to --out, so a crashed or interrupted
 campaign resumes by skipping completed entries (the reference's
 append-per-point results convention, plot_BLER_vs_SNR.m:165, at campaign
-scale).  On a pod slice the same code fans out over every chip via the dp
+scale).  On several devices the same code fans out over every one via the dp
 mesh (parallel/launcher.py); counters are identical by psum associativity
 (tests/test_sharding.py).
 
@@ -68,7 +68,7 @@ def auto_batch(A: int) -> int:
 
     Small-A chains are launch/fixed-cost bound at batch 512 (measured at
     A=100: 20k TB/s at batch 512 vs 1.83M at 8192 — a 78x cliff); large-A
-    chains gain nothing past 512 and pay VMEM/HBM pressure.
+    chains gain nothing past 512 and pay device-memory pressure.
     """
     b = 512
     while b < 8192 and b * A < 4_000_000:
@@ -96,7 +96,7 @@ def main():
     ap.add_argument("--steps-per-call", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None, help="run a single entry by name")
-    ap.add_argument("--out", default="golden/pod_campaign.json")
+    ap.add_argument("--out", default="results/pod_campaign.json")
     args = ap.parse_args()
 
     from ldpc_3gpp_tpu.utils.cache import enable_compilation_cache

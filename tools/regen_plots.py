@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rebuild golden/plots/*.png from the measured golden/*.json artifacts.
 
-Pure matplotlib — no TPU, no simulation.  Run after tools/regen_goldens.py
+Pure matplotlib — no accelerator, no simulation.  Run after tools/regen_goldens.py
 so the committed figures always match the committed numbers.
 """
 import json
@@ -31,7 +31,7 @@ def bler_curves():
     ax.semilogy(head["esn0_db"], head["bler"], marker="o",
                 label="BG2 A=3842 R=1/3 SP-flooding 8it (reference default)")
     cmp_ = _load("BLER_SP_vs_MS_BG2_A3842_R13_QPSK_8it.json")
-    for key, style in (("NMS-flooding", "s"), ("NMS-layered-pallas", "^")):
+    for key, style in (("NMS-flooding", "s"), ("NMS-layered", "^")):
         ax.semilogy(cmp_[key]["esn0_db"], cmp_[key]["bler"], marker=style,
                     label=f"BG2 A=3842 {key} 8it")
     c1 = _load("BLER_vs_SNR_BG2_A100_R12_QPSK_50it_minsum.json")
@@ -42,7 +42,7 @@ def bler_curves():
                 label="BG1 A=8448 R=1/3 layered-NMS 12it")
     ax.set_xlabel("$E_s/N_0$ [dB]")
     ax.set_ylabel("BLER")
-    ax.set_title("3GPP NR LDPC, QPSK, AWGN — measured (TPU v5e)")
+    ax.set_title("3GPP NR LDPC, QPSK, AWGN — measured")
     ax.grid(True, which="both", alpha=0.4)
     ax.legend(loc="lower left", fontsize=8)
     out = os.path.join(PLOTS, "bler_curves.png")
